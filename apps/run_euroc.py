@@ -1,16 +1,17 @@
 #!/usr/bin/env python
-"""EuRoC VIO driver — the TPU-native equivalent of the reference's
+"""EuRoC VIO driver — the equivalent of the reference's
 ``run_euroc_single_thread`` app (apps/run_euroc_single_thread.cpp:116-324).
 
 Usage:
     python apps/run_euroc.py <path-to>/mav0 [--out pose_out.txt]
-        [--chunk 128] [--platform tpu|cpu] [--method qr|cholesky]
+        [--chunk 128] [--platform gpu|cpu] [--method qr|cholesky|schur]
         [--camchain config/camchain-imucam-euroc.yaml] [--ate]
 
 Streams the dataset in chunks: each chunk of stereo frames + per-frame IMU
 batches is one device program (frontend KLT + MSCKF update fused); poses are
 written in TUM format and optionally scored against the bundled ground
-truth with the in-repo ATE evaluator.
+truth with the in-repo ATE evaluator.  ``main(argv)`` returns the run's
+poses, tracking counters and ATE for in-process callers.
 """
 import argparse
 import os
@@ -20,12 +21,12 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("mav0", help="path to the EuRoC sequence's mav0 directory")
     ap.add_argument("--out", default="pose_out.txt")
     ap.add_argument("--chunk", type=int, default=128)
-    ap.add_argument("--platform", default="tpu", choices=["tpu", "cpu"])
+    ap.add_argument("--platform", default="gpu", choices=["gpu", "cpu"])
     ap.add_argument("--method", default="schur", choices=["qr", "cholesky", "schur"])
     ap.add_argument("--camchain", default=None)
     ap.add_argument("--imgproc-config", default=None)
@@ -57,17 +58,19 @@ def main():
         "(t p11 p12 p13 p22 p23 p33; the reference marshals this block "
         "then discards it, msckf_vio.cpp:1262-1293)",
     )
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     import jax
 
-    if args.platform == "cpu":
-        jax.config.update("jax_platforms", "cpu")
+    from msckf_stereo_c.device import select_platform, setup_compile_cache
+
+    select_platform(args.platform)
+    setup_compile_cache()
     if args.f64:
         jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
-    from msckf_stereo_c_tpu.config import (
+    from msckf_stereo_c.config import (
         EUROC_CALIB,
         FilterConfig,
         FrontendConfig,
@@ -75,20 +78,13 @@ def main():
         load_filter_config,
         load_frontend_config,
     )
-    from msckf_stereo_c_tpu.io import evaluate_ate, write_tum
-    from msckf_stereo_c_tpu.io.euroc import ImageSource, load_sequence, synchronize_stereo
-    from msckf_stereo_c_tpu.models.vio import run_vio_sequence
+    from msckf_stereo_c.io import evaluate_ate, write_tum
+    from msckf_stereo_c.io.euroc import ImageSource, load_sequence, synchronize_stereo
+    from msckf_stereo_c.models.vio import run_vio_sequence
 
     calib = load_camchain(args.camchain) if args.camchain else EUROC_CALIB
     fcfg = load_frontend_config(args.imgproc_config) if args.imgproc_config else FrontendConfig()
-    # On TPU the schur path defaults to the Newton-Schulz solvers (batched
-    # MXU matmuls; XLA's Cholesky lowering is column-sequential).  10
-    # iterations cover conditioning ~3e4 — two orders beyond the max
-    # observed on stressed runs (c/min_eig ~3e2).  A yaml ns_iters wins.
-    base_mcfg = FilterConfig()
-    if args.platform == "tpu" and args.method == "schur" and not args.f64:
-        base_mcfg = FilterConfig(ns_iters=10)
-    mcfg = load_filter_config(args.msckf_config, base_mcfg) if args.msckf_config else base_mcfg
+    mcfg = load_filter_config(args.msckf_config) if args.msckf_config else FilterConfig()
 
     print(f"loading sequence {args.mav0} ...")
     seq = load_sequence(args.mav0)
@@ -111,7 +107,7 @@ def main():
     # Stream decode + run in chunks to bound host memory.  Per-phase timing
     # + the frame-budget overrun report are the production analog of the
     # reference's red-ANSI featureCallback timers (msckf_vio.cpp:321-372).
-    from msckf_stereo_c_tpu.utils.timing import PhaseTimer
+    from msckf_stereo_c.utils.timing import PhaseTimer
 
     timer = PhaseTimer(frame_budget_s=1.0 / mcfg.frame_rate)
     t_start = time.time()
@@ -120,7 +116,7 @@ def main():
 
     viewer = None
     if args.viewer is not None:
-        from msckf_stereo_c_tpu.io.live_viewer import LiveViewer
+        from msckf_stereo_c.io.live_viewer import LiveViewer
 
         viewer = LiveViewer(port=args.viewer)
         port = viewer.start()
@@ -212,12 +208,19 @@ def main():
             f"{1.0 / mcfg.frame_rate * 1e3:.0f} ms/frame budget\x1b[0m"
         )
 
+    ate = None
     if args.ate and seq.gt is not None:
         ate = evaluate_ate(times_out, pos, seq.gt.t, seq.gt.p)
         print(
             f"ATE RMSE {ate.rmse:.6f} m  mean {ate.mean:.4f}  median {ate.median:.4f} "
             f"std {ate.std:.4f}  min {ate.min:.4f}  max {ate.max:.4f}  pairs {ate.num_pairs}"
         )
+    tracking = {
+        k: np.concatenate([r.tracking[k] for r in all_res])
+        for k in all_res[0].tracking
+    }
+    return {"times": times_out, "positions": pos, "quats_xyzw": quat,
+            "tracking": tracking, "ate": ate}
 
 
 if __name__ == "__main__":

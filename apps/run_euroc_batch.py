@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Batched multi-sequence EuRoC evaluation: run several sequences on one
-chip as a vmapped batch (BASELINE.json config 3, "MH_01-MH_05 machine-hall
+device as a vmapped batch (BASELINE.json config 3, "MH_01-MH_05 machine-hall
 batch ... on one chip").
 
 Usage:
@@ -19,7 +19,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("mav0", nargs="+")
     ap.add_argument("--out-dir", default="poses")
@@ -27,23 +27,25 @@ def main():
     ap.add_argument("--method", default="schur")
     ap.add_argument("--ate", action="store_true")
     ap.add_argument("--max-frames", type=int, default=None)
-    ap.add_argument("--platform", default="tpu", choices=["tpu", "cpu"])
-    args = ap.parse_args()
+    ap.add_argument("--platform", default="gpu", choices=["gpu", "cpu"])
+    args = ap.parse_args(argv)
 
     import jax
 
-    if args.platform == "cpu":
-        jax.config.update("jax_platforms", "cpu")
+    from msckf_stereo_c.device import select_platform, setup_compile_cache
+
+    select_platform(args.platform)
+    setup_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 
-    from msckf_stereo_c_tpu.config import EUROC_CALIB, FilterConfig, FrontendConfig
-    from msckf_stereo_c_tpu.io import evaluate_ate, write_tum
-    from msckf_stereo_c_tpu.io.euroc import load_images, load_sequence, synchronize_stereo
-    from msckf_stereo_c_tpu.models.frontend import make_frontend_params
-    from msckf_stereo_c_tpu.models.msckf import make_params
-    from msckf_stereo_c_tpu.models.runner import apply_gravity_init, pack_imu_batches
-    from msckf_stereo_c_tpu.models.vio import init_vio_state, vio_step
+    from msckf_stereo_c.config import EUROC_CALIB, FilterConfig, FrontendConfig
+    from msckf_stereo_c.io import evaluate_ate, write_tum
+    from msckf_stereo_c.io.euroc import load_images, load_sequence, synchronize_stereo
+    from msckf_stereo_c.models.frontend import make_frontend_params
+    from msckf_stereo_c.models.msckf import make_params
+    from msckf_stereo_c.models.runner import apply_gravity_init, pack_imu_batches
+    from msckf_stereo_c.models.vio import init_vio_state, vio_step
 
     fcfg = FrontendConfig()
     mcfg = FilterConfig()

@@ -1,0 +1,172 @@
+"""The V1_01-realistic synthetic stress gate (VERDICT round 1, next #2).
+
+The reference's only quality bar is ATE on real EuRoC V1_01_easy
+(/root/reference/README.md:53-88, best 0.1207 m over a 144 s sequence).
+That dataset is absent here, so this module assembles the harder synthetic
+stand-in end-to-end:
+
+* `make_stress_trajectory` — >=120 s aggressive 6-dof motion with
+  near-stall (low-parallax) stretches (sim/trajectory.py),
+* `make_room_landmarks` + the renderer's room (7 m cylinder + floor/
+  ceiling at +/-3.5 m) — Vicon-room-scale geometry like the real V1_01
+  (depths ~2.6-11 m; the earlier 12 m wall-only scene was a 24 m-wide,
+  16 m-tall hall whose uniformly-far, wall-only features left vertical
+  position an order of magnitude less observable than on the real
+  dataset — docs/STRESS_NOTES.md round 3),
+* `make_stress_events`  — texture-poor windows, a person-scale occluder
+  sweep, and continuous exposure drift (sim/render_jax.py),
+* the device renderer -> full VIO pipeline (frontend kernels + MSCKF),
+  chunked so arbitrarily long sequences stream through fixed memory.
+
+`run_stress_gate` is shared by `tests/test_stress_gate.py` (short CPU
+variant) and `scripts/stress_gate.py` / bench side-channel (full-length
+f32 device run); the gate is ATE RMSE <= 0.13 m (BASELINE.json).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import jax.numpy as jnp
+import numpy as np
+
+from ..config import EUROC_CALIB, FilterConfig, FrontendConfig, StereoCalib
+from ..io import evaluate_ate
+from ..models.vio import VioResult, run_vio_sequence
+from .render_jax import JaxRenderer, StressEvents, make_stress_events
+from .trajectory import make_room_landmarks, make_stress_trajectory, synthesize_imu
+
+
+@dataclasses.dataclass
+class StressGateResult:
+    ate_rmse: float
+    ate_mean: float
+    ate_max: float
+    duration: float
+    n_frames: int
+    min_tracks_after_ransac: int
+    result: VioResult
+    gt_t: np.ndarray
+    gt_p: np.ndarray
+
+
+def run_stress_gate(
+    duration: float = 130.0,
+    frame_stride: int = 10,
+    r_wall: float = 7.0,
+    z_cap: float = 3.5,
+    num_landmarks: int = 900,
+    chunk: int = 64,
+    fcfg: Optional[FrontendConfig] = None,
+    mcfg: Optional[FilterConfig] = None,
+    calib: StereoCalib = EUROC_CALIB,
+    image_dtype=jnp.float32,
+    filter_dtype=jnp.float32,
+    method: str = "schur",
+    events: Optional[StressEvents] = None,
+    stress: bool = True,
+    seed: int = 0,
+    traj_kwargs: Optional[dict] = None,
+    generator: str = "stress",
+    lm_seed: Optional[int] = None,
+    imu_gyro_noise: float = 5e-4,
+    imu_acc_noise: float = 5e-3,
+    events_kwargs: Optional[dict] = None,
+) -> StressGateResult:
+    """Render + run the stress scene in fixed-memory chunks.
+
+    Images never materialize as one (T, H, W) host array: each chunk is
+    rendered on device, pulled once, run through the pipeline, and freed —
+    a 130 s sequence (2601 stereo frames) peaks at ~2*chunk frames of
+    image memory.
+    """
+    if generator == "circle":
+        from .trajectory import make_circle_trajectory
+
+        traj = make_circle_trajectory(duration=duration, **(traj_kwargs or {}))
+    elif generator == "fastmotion":
+        from .trajectory import make_fastmotion_trajectory
+
+        traj = make_fastmotion_trajectory(duration=duration, **(traj_kwargs or {}))
+    else:
+        traj = make_stress_trajectory(duration=duration, **(traj_kwargs or {}))
+    landmarks = make_room_landmarks(
+        num=num_landmarks, radius=r_wall, z_cap=z_cap,
+        seed=1 if lm_seed is None else lm_seed,
+    )
+    imu = synthesize_imu(traj, gyro_noise=imu_gyro_noise, acc_noise=imu_acc_noise, seed=seed)
+    frame_idx = np.arange(0, traj.t.shape[0], frame_stride)
+    frame_t = traj.t[frame_idx]
+    T = len(frame_idx)
+
+    if events is not None:
+        ev = events
+    elif stress:
+        # The photometric channels re-draw with the robustness seed too.
+        ev = make_stress_events(
+            traj, frame_idx, noise_seed=seed, **(events_kwargs or {})
+        )
+    else:
+        ev = StressEvents.nominal(T)
+    renderer = JaxRenderer(landmarks, calib, r_wall=r_wall, z_cap=z_cap)
+
+    fcfg = fcfg or FrontendConfig()
+    mcfg = mcfg or FilterConfig(ns_iters=10 if method == "schur" else 0)
+
+    state = None
+    results = []
+    for s0 in range(0, T, chunk):
+        s1 = min(s0 + chunk, T)
+        img0, img1 = renderer.render_sequence(
+            traj, frame_idx[s0:s1], ev.slice(s0, s1), chunk=chunk
+        )
+        res = run_vio_sequence(
+            fcfg,
+            mcfg,
+            calib,
+            frame_t[s0:s1],
+            img0,
+            img1,
+            imu.t,
+            imu.gyro,
+            imu.acc,
+            image_dtype=image_dtype,
+            filter_dtype=filter_dtype,
+            method=method,
+            state=state,
+            prev_frame_t=float(frame_t[s0 - 1]) if s0 > 0 else None,
+        )
+        state = res.final_state
+        results.append(res)
+
+    def cat(field):
+        return np.concatenate([getattr(r, field) for r in results], axis=0)
+
+    full = VioResult(
+        times=cat("times"),
+        positions=cat("positions"),
+        quats_xyzw=cat("quats_xyzw"),
+        pos_cov=cat("pos_cov"),
+        num_tracks=cat("num_tracks"),
+        tracking={
+            k: np.concatenate([r.tracking[k] for r in results])
+            for k in results[0].tracking
+        },
+        final_state=state,
+        fid=cat("fid"),
+        uv=cat("uv"),
+        valid=cat("valid"),
+    )
+    gt_t, gt_p = frame_t, traj.p[frame_idx]
+    ate = evaluate_ate(full.times, full.positions, gt_t, gt_p)
+    return StressGateResult(
+        ate_rmse=float(ate.rmse),
+        ate_mean=float(ate.mean),
+        ate_max=float(ate.max),
+        duration=float(frame_t[-1] - frame_t[0]),
+        n_frames=T,
+        min_tracks_after_ransac=int(full.tracking["after_ransac"][5:].min()),
+        result=full,
+        gt_t=gt_t,
+        gt_p=gt_p,
+    )

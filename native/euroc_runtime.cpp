@@ -1,8 +1,8 @@
-// Native runtime for the TPU VIO engine: EuRoC dataset IO.
+// Native runtime for the VIO engine: EuRoC dataset IO.
 //
 // The reference engine's driver does CSV parsing and PNG decoding on the
 // main thread between filter updates (apps/run_euroc_single_thread.cpp:
-// 151-238, cv::imread at :194).  Feeding a TPU needs the host loop to be
+// 151-238, cv::imread at :194).  Feeding an accelerator needs the host loop to be
 // far off the critical path, so this library provides:
 //   * a fast IMU/camera CSV parser (no iostream overhead),
 //   * libpng grayscale decoding,
@@ -10,7 +10,7 @@
 //     queue, so image batches are ready before the device asks for them.
 //
 // Exposed as a plain C ABI consumed from Python via ctypes
-// (msckf_stereo_c_tpu/io/native.py).
+// (msckf_stereo_c/io/native.py).
 
 #include <png.h>
 

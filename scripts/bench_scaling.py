@@ -1,17 +1,17 @@
 """Multi-device scaling efficiency of the sharded multi-sequence filter.
 
-North-star: >=80% scaling efficiency at N>=2 (BASELINE.md).  With one real
-TPU chip in this environment, the collective path is validated on a virtual
-CPU mesh (the same shard_map program the driver dry-runs); on a pod slice
-the identical code shards over real ICI.
+North-star: >=80% scaling efficiency at N>=2 (BASELINE.md).  This script
+runs the collective path on a virtual CPU mesh (the same shard_map program
+the driver dry-runs); on several GPUs the identical code shards over the
+cards.
 
 Weak scaling: B=N sequences over N devices vs N sequences on 1 device.
 
 NOTE: on a virtual CPU mesh the N "devices" share the same physical cores
 and host-side collectives dominate, so the efficiency numbers printed here
 are NOT hardware-meaningful — this script exists to exercise the sharded
-program end-to-end.  Real efficiency must be measured on a pod slice where
-each mesh element is a chip and collectives ride ICI."""
+program end-to-end.  Real efficiency must be measured on several GPUs,
+where each mesh element is a card."""
 import os
 import sys
 import time
@@ -20,17 +20,19 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ["XLA_FLAGS"] = os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8"
 import jax
 
-jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+from msckf_stereo_c.device import select_platform, setup_compile_cache  # noqa: E402
+
+select_platform("cpu")
+setup_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB, FilterConfig
-from msckf_stereo_c_tpu.models.msckf import FrameFeatures, make_params
-from msckf_stereo_c_tpu.models.propagation import ImuBatch
-from msckf_stereo_c_tpu.parallel.multiseq import batched_init_state, make_sharded_runner
+from msckf_stereo_c.config import EUROC_CALIB, FilterConfig
+from msckf_stereo_c.models.msckf import FrameFeatures, make_params
+from msckf_stereo_c.models.propagation import ImuBatch
+from msckf_stereo_c.parallel.multiseq import batched_init_state, make_sharded_runner
 
 cfg = FilterConfig(max_cam_state_size=8, max_tracks=48, max_imu_per_frame=10)
 dtype = jnp.float32
@@ -77,20 +79,20 @@ def run_flagship_on(n_dev, reps=2):
     M=20) — the one-command artifact for the >=80% N>=2 measurement on a
     real pod slice (VERDICT round 3, next #8).  1 lane per device,
     T = M+2 frames per step."""
-    from msckf_stereo_c_tpu.config import FrontendConfig
-    from msckf_stereo_c_tpu.models.frontend import make_frontend_params
-    from msckf_stereo_c_tpu.models.runner import pack_imu_batches
-    from msckf_stereo_c_tpu.models.vio import init_vio_state
-    from msckf_stereo_c_tpu.parallel.vio_multiseq import (
+    from msckf_stereo_c.config import FrontendConfig
+    from msckf_stereo_c.models.frontend import make_frontend_params
+    from msckf_stereo_c.models.runner import pack_imu_batches
+    from msckf_stereo_c.models.vio import init_vio_state
+    from msckf_stereo_c.parallel.vio_multiseq import (
         batched_init_vio_state,
         make_sharded_vio_runner,
     )
-    from msckf_stereo_c_tpu.sim import (
+    from msckf_stereo_c.sim import (
         make_circle_trajectory,
         make_wall_landmarks,
         synthesize_imu,
     )
-    from msckf_stereo_c_tpu.sim.render_jax import JaxRenderer, StressEvents
+    from msckf_stereo_c.sim.render_jax import JaxRenderer, StressEvents
 
     fcfg = FrontendConfig()
     mcfg_fl = FilterConfig(ns_iters=10)
@@ -139,7 +141,7 @@ def main():
         # jax.distributed (parallel/multiproc.py).  Reuses the dryrun
         # worker with timing; compare the reported step_ms against a
         # --flagship run at the same total device count.
-        from msckf_stereo_c_tpu.parallel.multiproc import launch_workers
+        from msckf_stereo_c.parallel.multiproc import launch_workers
 
         P = int(sys.argv[sys.argv.index("--processes") + 1])
         D = int(os.environ.get("SCALE_DEVICES_PER_PROC", "2"))

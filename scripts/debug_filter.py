@@ -6,28 +6,30 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ["JAX_PLATFORMS"] = "cpu"
 import jax
 
-jax.config.update("jax_platforms", "cpu")
+from msckf_stereo_c.device import select_platform, setup_compile_cache  # noqa: E402
+
+select_platform("cpu")
+setup_compile_cache()
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 
 import jax.numpy as jnp
 import numpy as np
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB, FilterConfig
-from msckf_stereo_c_tpu.models import (
+from msckf_stereo_c.config import EUROC_CALIB, FilterConfig
+from msckf_stereo_c.models import (
     FrameFeatures,
     apply_gravity_init,
     init_filter_state,
     make_params,
     pack_imu_batches,
 )
-from msckf_stereo_c_tpu.models.augmentation import add_feature_observations, augment_state
-from msckf_stereo_c_tpu.models.msckf import _remove_lost_features, _prune_cam_states
-from msckf_stereo_c_tpu.models.propagation import propagate
-from msckf_stereo_c_tpu.models.triangulation import triangulate_tracks
-from msckf_stereo_c_tpu.models.update import gating_scores, track_jacobians
-from msckf_stereo_c_tpu.sim import (
+from msckf_stereo_c.models.augmentation import add_feature_observations, augment_state
+from msckf_stereo_c.models.msckf import _remove_lost_features, _prune_cam_states
+from msckf_stereo_c.models.propagation import propagate
+from msckf_stereo_c.models.triangulation import triangulate_tracks
+from msckf_stereo_c.models.update import gating_scores, track_jacobians
+from msckf_stereo_c.sim import (
     make_circle_trajectory,
     make_landmarks,
     project_tracks,

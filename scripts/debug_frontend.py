@@ -6,25 +6,27 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ["JAX_PLATFORMS"] = "cpu"
 import jax
 
-jax.config.update("jax_platforms", "cpu")
+from msckf_stereo_c.device import select_platform, setup_compile_cache  # noqa: E402
+
+select_platform("cpu")
+setup_compile_cache()
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 
 import jax.numpy as jnp
 import numpy as np
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB, FrontendConfig
-from msckf_stereo_c_tpu.models.frontend import (
+from msckf_stereo_c.config import EUROC_CALIB, FrontendConfig
+from msckf_stereo_c.models.frontend import (
     _stereo_match,
     make_frontend_params,
     pyramids_for,
 )
-from msckf_stereo_c_tpu.ops.fast import detect_grid_corners
-from msckf_stereo_c_tpu.ops.klt import optical_flow_pyr_lk
-from msckf_stereo_c_tpu.ops.camera import undistort_points, distort_points
-from msckf_stereo_c_tpu.sim import make_circle_trajectory, make_landmarks
-from msckf_stereo_c_tpu.sim.render import render_stereo_sequence, _distort_project
+from msckf_stereo_c.ops.fast import detect_grid_corners
+from msckf_stereo_c.ops.klt import optical_flow_pyr_lk
+from msckf_stereo_c.ops.camera import undistort_points, distort_points
+from msckf_stereo_c.sim import make_circle_trajectory, make_landmarks
+from msckf_stereo_c.sim.render import render_stereo_sequence, _distort_project
 
 fcfg = FrontendConfig()
 traj = make_circle_trajectory(duration=4.0)

@@ -15,9 +15,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB, FilterConfig, FrontendConfig
-from msckf_stereo_c_tpu.models.frontend import make_frontend_params, pyramids_for
-from msckf_stereo_c_tpu.models.msckf import (
+from msckf_stereo_c.config import EUROC_CALIB, FilterConfig, FrontendConfig
+from msckf_stereo_c.models.frontend import make_frontend_params, pyramids_for
+from msckf_stereo_c.models.msckf import (
     FrameFeatures,
     _online_reset,
     _prune_cam_states,
@@ -25,12 +25,12 @@ from msckf_stereo_c_tpu.models.msckf import (
     _remove_lost_features,
     make_params,
 )
-from msckf_stereo_c_tpu.models.augmentation import add_feature_observations, augment_state
-from msckf_stereo_c_tpu.models.propagation import propagate
-from msckf_stereo_c_tpu.models.runner import apply_gravity_init, pack_imu_batches
-from msckf_stereo_c_tpu.models.vio import VioState, init_vio_state
-from msckf_stereo_c_tpu.sim import make_circle_trajectory, make_wall_landmarks, synthesize_imu
-from msckf_stereo_c_tpu.sim.render import render_stereo_sequence
+from msckf_stereo_c.models.augmentation import add_feature_observations, augment_state
+from msckf_stereo_c.models.propagation import propagate
+from msckf_stereo_c.models.runner import apply_gravity_init, pack_imu_batches
+from msckf_stereo_c.models.vio import VioState, init_vio_state
+from msckf_stereo_c.sim import make_circle_trajectory, make_wall_landmarks, synthesize_imu
+from msckf_stereo_c.sim.render import render_stereo_sequence
 
 fcfg = FrontendConfig(temporal_levels=1)
 mcfg = FilterConfig(ns_iters=int(os.environ.get("FPS_NS_ITERS", "10")))

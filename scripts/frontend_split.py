@@ -20,12 +20,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import msckf_stereo_c_tpu.models.frontend as fe
-from msckf_stereo_c_tpu.config import EUROC_CALIB, FrontendConfig
-from msckf_stereo_c_tpu.models.frontend import init_tracker_state, make_frontend_params, pyramids_for
-from msckf_stereo_c_tpu.ops.klt import KltResult
-from msckf_stereo_c_tpu.sim import make_circle_trajectory, make_wall_landmarks, synthesize_imu
-from msckf_stereo_c_tpu.sim.render import render_stereo_sequence
+import msckf_stereo_c.models.frontend as fe
+from msckf_stereo_c.config import EUROC_CALIB, FrontendConfig
+from msckf_stereo_c.models.frontend import init_tracker_state, make_frontend_params, pyramids_for
+from msckf_stereo_c.ops.klt import KltResult
+from msckf_stereo_c.sim import make_circle_trajectory, make_wall_landmarks, synthesize_imu
+from msckf_stereo_c.sim.render import render_stereo_sequence
 
 # tmpl_carry off: the carry path calls optical_flow_lk_corr_l0 directly,
 # which would bypass the _klt_fn/_stereo_match_merged monkeypatches and

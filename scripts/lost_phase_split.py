@@ -13,21 +13,21 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB, FilterConfig, FrontendConfig
-from msckf_stereo_c_tpu.models.frontend import make_frontend_params, pyramids_for
-from msckf_stereo_c_tpu.models.msckf import FrameFeatures, make_params
-from msckf_stereo_c_tpu.models.augmentation import add_feature_observations, augment_state
-from msckf_stereo_c_tpu.models.propagation import propagate
-from msckf_stereo_c_tpu.models.runner import apply_gravity_init, pack_imu_batches
-from msckf_stereo_c_tpu.models.triangulation import check_motion_tracks, triangulate_tracks
-from msckf_stereo_c_tpu.models.update import (
+from msckf_stereo_c.config import EUROC_CALIB, FilterConfig, FrontendConfig
+from msckf_stereo_c.models.frontend import make_frontend_params, pyramids_for
+from msckf_stereo_c.models.msckf import FrameFeatures, make_params
+from msckf_stereo_c.models.augmentation import add_feature_observations, augment_state
+from msckf_stereo_c.models.propagation import propagate
+from msckf_stereo_c.models.runner import apply_gravity_init, pack_imu_batches
+from msckf_stereo_c.models.triangulation import check_motion_tracks, triangulate_tracks
+from msckf_stereo_c.models.update import (
     measurement_update_schur,
     schur_gating,
     track_blocks,
 )
-from msckf_stereo_c_tpu.models.vio import VioState, init_vio_state
-from msckf_stereo_c_tpu.sim import make_circle_trajectory, make_wall_landmarks, synthesize_imu
-from msckf_stereo_c_tpu.sim.render import render_stereo_sequence
+from msckf_stereo_c.models.vio import VioState, init_vio_state
+from msckf_stereo_c.sim import make_circle_trajectory, make_wall_landmarks, synthesize_imu
+from msckf_stereo_c.sim.render import render_stereo_sequence
 
 fcfg = FrontendConfig(temporal_levels=1)
 mcfg = FilterConfig(ns_iters=int(os.environ.get("FPS_NS_ITERS", "10")))
@@ -75,7 +75,7 @@ def lost_prefix(state, params, upto):
 
     # Mirrors the shipped order: compact to max_update_tracks slots BEFORE
     # the motion check / triangulation (msckf._compact_candidates).
-    from msckf_stereo_c_tpu.models.msckf import _compact_candidates
+    from msckf_stereo_c.models.msckf import _compact_candidates
 
     idx = _compact_candidates(candidates, mcfg.max_update_tracks)
     obs = tracks.obs[idx]

@@ -48,20 +48,20 @@ def compute_sessions(
     import jax.numpy as jnp
     import numpy as np
 
-    from msckf_stereo_c_tpu.config import EUROC_CALIB, FilterConfig, FrontendConfig
-    from msckf_stereo_c_tpu.io import evaluate_ate
-    from msckf_stereo_c_tpu.models.runner import apply_gravity_init
-    from msckf_stereo_c_tpu.models.state import init_filter_state
-    from msckf_stereo_c_tpu.models.vio import run_vio_sequence
-    from msckf_stereo_c_tpu.parallel.multisession import session_frame_transform
-    from msckf_stereo_c_tpu.parallel.refine import build_ba_problem
-    from msckf_stereo_c_tpu.sim import (
+    from msckf_stereo_c.config import EUROC_CALIB, FilterConfig, FrontendConfig
+    from msckf_stereo_c.io import evaluate_ate
+    from msckf_stereo_c.models.runner import apply_gravity_init
+    from msckf_stereo_c.models.state import init_filter_state
+    from msckf_stereo_c.models.vio import run_vio_sequence
+    from msckf_stereo_c.parallel.multisession import session_frame_transform
+    from msckf_stereo_c.parallel.refine import build_ba_problem
+    from msckf_stereo_c.sim import (
         make_circle_trajectory,
         make_room_landmarks,
         synthesize_imu,
         transform_trajectory,
     )
-    from msckf_stereo_c_tpu.sim.render_jax import JaxRenderer, StressEvents
+    from msckf_stereo_c.sim.render_jax import JaxRenderer, StressEvents
 
     fcfg = FrontendConfig()
     mcfg = FilterConfig(ns_iters=10)
@@ -155,8 +155,8 @@ def align_and_solve(
     input).  Returns the result dict (sans wall_s)."""
     import numpy as np
 
-    from msckf_stereo_c_tpu.io import evaluate_ate
-    from msckf_stereo_c_tpu.parallel.multisession import (
+    from msckf_stereo_c.io import evaluate_ate
+    from msckf_stereo_c.parallel.multisession import (
         SessionData,
         apply_rigid,
         build_joint_graph,
@@ -236,7 +236,7 @@ def align_and_solve(
 
         n_dev = len(_jax.devices())
         if n_dev >= 2:
-            from msckf_stereo_c_tpu.parallel.multiseq import make_mesh
+            from msckf_stereo_c.parallel.multiseq import make_mesh
 
             mesh = make_mesh(n_dev, axis="edges")
     refined, costs = optimize_joint(graph, mesh=mesh, iters=graph_iters)

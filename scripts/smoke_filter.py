@@ -7,16 +7,18 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ["JAX_PLATFORMS"] = "cpu"
 import jax
 
-jax.config.update("jax_platforms", "cpu")
+from msckf_stereo_c.device import select_platform, setup_compile_cache  # noqa: E402
+
+select_platform("cpu")
+setup_compile_cache()
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 
 import numpy as np
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB, FilterConfig
-from msckf_stereo_c_tpu.models import run_sequence
-from msckf_stereo_c_tpu.sim import (
+from msckf_stereo_c.config import EUROC_CALIB, FilterConfig
+from msckf_stereo_c.models import run_sequence
+from msckf_stereo_c.sim import (
     make_circle_trajectory,
     make_landmarks,
     project_tracks,
@@ -50,7 +52,7 @@ res = run_sequence(
 )
 print("run time", time.time() - t0)
 
-from msckf_stereo_c_tpu.io import evaluate_ate
+from msckf_stereo_c.io import evaluate_ate
 
 gt = traj.p[feats.frame_index]
 print("frames:", len(feats.t))

@@ -6,20 +6,22 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ["JAX_PLATFORMS"] = "cpu"
 import jax
 
-jax.config.update("jax_platforms", "cpu")
+from msckf_stereo_c.device import select_platform, setup_compile_cache  # noqa: E402
+
+select_platform("cpu")
+setup_compile_cache()
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 
 import time
 
 import numpy as np
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB, FilterConfig, FrontendConfig
-from msckf_stereo_c_tpu.io import evaluate_ate
-from msckf_stereo_c_tpu.models.vio import run_vio_sequence
-from msckf_stereo_c_tpu.sim import make_circle_trajectory, make_wall_landmarks, synthesize_imu
-from msckf_stereo_c_tpu.sim.render import render_stereo_sequence
+from msckf_stereo_c.config import EUROC_CALIB, FilterConfig, FrontendConfig
+from msckf_stereo_c.io import evaluate_ate
+from msckf_stereo_c.models.vio import run_vio_sequence
+from msckf_stereo_c.sim import make_circle_trajectory, make_wall_landmarks, synthesize_imu
+from msckf_stereo_c.sim.render import render_stereo_sequence
 
 fcfg = FrontendConfig(max_features=64)
 mcfg = FilterConfig(max_cam_state_size=8, max_tracks=80, max_imu_per_frame=12)

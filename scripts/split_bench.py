@@ -14,13 +14,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB, FilterConfig, FrontendConfig
-from msckf_stereo_c_tpu.models.frontend import frontend_step, make_frontend_params, pyramids_for
-from msckf_stereo_c_tpu.models.msckf import FrameFeatures, filter_step, make_params
-from msckf_stereo_c_tpu.models.runner import apply_gravity_init, pack_imu_batches
-from msckf_stereo_c_tpu.models.vio import VioState, init_vio_state
-from msckf_stereo_c_tpu.sim import make_circle_trajectory, make_wall_landmarks, synthesize_imu
-from msckf_stereo_c_tpu.sim.render import render_stereo_sequence
+from msckf_stereo_c.config import EUROC_CALIB, FilterConfig, FrontendConfig
+from msckf_stereo_c.models.frontend import frontend_step, make_frontend_params, pyramids_for
+from msckf_stereo_c.models.msckf import FrameFeatures, filter_step, make_params
+from msckf_stereo_c.models.runner import apply_gravity_init, pack_imu_batches
+from msckf_stereo_c.models.vio import VioState, init_vio_state
+from msckf_stereo_c.sim import make_circle_trajectory, make_wall_landmarks, synthesize_imu
+from msckf_stereo_c.sim.render import render_stereo_sequence
 
 fcfg = FrontendConfig(
     temporal_levels=2, klt_impl=os.environ.get("SPLIT_KLT", FrontendConfig.klt_impl)

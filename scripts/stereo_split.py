@@ -14,10 +14,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB, FrontendConfig
-from msckf_stereo_c_tpu.models.frontend import _klt_fn, make_frontend_params
-from msckf_stereo_c_tpu.ops.camera import distort_points, undistort_points
-from msckf_stereo_c_tpu.ops.pyramid import build_pyramid
+from msckf_stereo_c.config import EUROC_CALIB, FrontendConfig
+from msckf_stereo_c.models.frontend import _klt_fn, make_frontend_params
+from msckf_stereo_c.ops.camera import distort_points, undistort_points
+from msckf_stereo_c.ops.pyramid import build_pyramid
 
 B = int(os.environ.get("SS_BATCH", "16"))
 N, C = 96, 80

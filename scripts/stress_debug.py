@@ -23,10 +23,10 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from msckf_stereo_c_tpu.config import FilterConfig, FrontendConfig
-    from msckf_stereo_c_tpu.sim.render_jax import make_stress_events
-    from msckf_stereo_c_tpu.sim.stress import run_stress_gate
-    from msckf_stereo_c_tpu.sim.trajectory import make_stress_trajectory
+    from msckf_stereo_c.config import FilterConfig, FrontendConfig
+    from msckf_stereo_c.sim.render_jax import make_stress_events
+    from msckf_stereo_c.sim.stress import run_stress_gate
+    from msckf_stereo_c.sim.trajectory import make_stress_trajectory
 
     duration = float(os.environ.get("STRESS_DURATION", "36"))
     variant = os.environ.get("STRESS_VARIANT", "stress")
@@ -50,8 +50,8 @@ def main():
         # Ablation: pin the filter's gravity vector to the sim's exact
         # value instead of estimating |g| from the noisy static window
         # (isolates gravity-magnitude error from vision drift).
-        import msckf_stereo_c_tpu.models.vio as _vio
-        from msckf_stereo_c_tpu.sim.trajectory import GRAVITY as _G
+        import msckf_stereo_c.models.vio as _vio
+        from msckf_stereo_c.sim.trajectory import GRAVITY as _G
 
         _orig = _vio.apply_gravity_init
 
@@ -84,7 +84,7 @@ def main():
     )
 
     # Aligned per-frame error (same association/alignment as evaluate_ate).
-    from msckf_stereo_c_tpu.io.tum import associate, horn_align
+    from msckf_stereo_c.io.tum import associate, horn_align
 
     ia, ib = associate(out.result.times, out.gt_t, 0.02)
     e, g = out.result.positions[ia], out.gt_p[ib]

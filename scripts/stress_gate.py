@@ -3,8 +3,8 @@
 
 Runs the 130 s aggressive-6dof stress scene — texture-poor windows,
 occluder sweep, exposure drift — end to end (device render -> frontend
-kernels -> MSCKF) on whatever device JAX provides (the real TPU chip under
-the driver; CPU fallback), f32 + schur + Newton-Schulz: the hardware path.
+kernels -> MSCKF) on JAX's default device (STRESS_PLATFORM=gpu|cpu picks
+one), f32 + schur: the hardware path.
 
 Prints one JSON line with the ATE and the margin vs the 0.13 m bar
 (BASELINE.json; reference best on real V1_01_easy: 0.1207 m,
@@ -28,24 +28,28 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
-    import jax
+    from msckf_stereo_c.device import select_platform, setup_compile_cache
 
     if "STRESS_PLATFORM" in os.environ:
-        jax.config.update("jax_platforms", os.environ["STRESS_PLATFORM"])
+        select_platform(os.environ["STRESS_PLATFORM"])
+    setup_compile_cache()
 
     import numpy as np
+    import jax
     import jax.numpy as jnp
 
-    from msckf_stereo_c_tpu.config import FilterConfig, FrontendConfig
-    from msckf_stereo_c_tpu.sim.stress import run_stress_gate
+    from msckf_stereo_c.config import FilterConfig, FrontendConfig
+    from msckf_stereo_c.sim.stress import run_stress_gate
 
     duration = float(os.environ.get("STRESS_DURATION", "130"))
     method = os.environ.get("STRESS_METHOD", "schur")
     n_seeds = int(os.environ.get("STRESS_SEEDS", "1"))
     seed0 = int(os.environ.get("STRESS_SEED", "0"))
     mcfg = FilterConfig(
-        ns_iters=int(os.environ.get("STRESS_NS_ITERS", "10")),
-        matmul_precision=os.environ.get("STRESS_FILTER_PRECISION", "tensorfloat32"),
+        ns_iters=int(os.environ.get("STRESS_NS_ITERS", FilterConfig.ns_iters)),
+        matmul_precision=os.environ.get(
+            "STRESS_FILTER_PRECISION", FilterConfig.matmul_precision
+        ),
         noise_adaptive=os.environ.get(
             "STRESS_NOISE_ADAPTIVE", str(int(FilterConfig.noise_adaptive))
         ) == "1",
@@ -138,9 +142,9 @@ def main():
     # Horn alignment.
     refine_stats = None
     if os.environ.get("STRESS_REFINE", "0") == "1" or "--refine" in sys.argv:
-        from msckf_stereo_c_tpu.config import EUROC_CALIB
-        from msckf_stereo_c_tpu.io import evaluate_ate
-        from msckf_stereo_c_tpu.parallel.refine import (
+        from msckf_stereo_c.config import EUROC_CALIB
+        from msckf_stereo_c.io import evaluate_ate
+        from msckf_stereo_c.parallel.refine import (
             build_ba_problem,
             problem_to_body_poses,
             refine_trajectory,

@@ -4,13 +4,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from msckf_stereo_c_tpu.parallel.ba import (
+from msckf_stereo_c.parallel.ba import (
     BAProblem,
     ba_gauss_newton,
     make_distributed_ba,
 )
-from msckf_stereo_c_tpu.utils.quaternion import jpl_to_rot, rot_to_jpl
-from msckf_stereo_c_tpu.utils.lie import so3_exp
+from msckf_stereo_c.utils.quaternion import jpl_to_rot, rot_to_jpl
+from msckf_stereo_c.utils.lie import so3_exp
 
 RNG = np.random.default_rng(17)
 
@@ -78,7 +78,7 @@ def test_ba_noisy_improves():
 
 
 def test_distributed_ba_matches_single():
-    from msckf_stereo_c_tpu.parallel.multiseq import make_mesh
+    from msckf_stereo_c.parallel.multiseq import make_mesh
 
     true, pert = _make_problem(L=64)
     mesh = make_mesh(8, axis="map")

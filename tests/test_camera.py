@@ -4,8 +4,8 @@ import cv2
 import jax.numpy as jnp
 import numpy as np
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB
-from msckf_stereo_c_tpu.ops.camera import (
+from msckf_stereo_c.config import EUROC_CALIB
+from msckf_stereo_c.ops.camera import (
     distort_points,
     radtan_distort_normalized,
     undistort_points,
@@ -80,14 +80,14 @@ def test_distort_matches_opencv_projectpoints():
 def test_roundtrip():
     xn = jnp.asarray(RNG.uniform(-0.6, 0.6, (100, 2)))
     xd = radtan_distort_normalized(xn, jnp.asarray(D))
-    from msckf_stereo_c_tpu.ops.camera import radtan_undistort_normalized
+    from msckf_stereo_c.ops.camera import radtan_undistort_normalized
 
     back = radtan_undistort_normalized(xd, jnp.asarray(D))
     np.testing.assert_allclose(np.asarray(back), np.asarray(xn), atol=1e-9)
 
 
 def test_equidistant_roundtrip():
-    from msckf_stereo_c_tpu.ops.camera import (
+    from msckf_stereo_c.ops.camera import (
         equidistant_distort_normalized,
         equidistant_undistort_normalized,
     )
@@ -103,7 +103,7 @@ def test_equidistant_matches_opencv():
     D_fish = np.array([-0.01, 0.02, -0.005, 0.001])
     n = 100
     xn = RNG.uniform(-0.5, 0.5, (n, 2))
-    from msckf_stereo_c_tpu.ops.camera import (
+    from msckf_stereo_c.ops.camera import (
         equidistant_distort_normalized,
         normalized_to_pixel,
     )

@@ -3,11 +3,11 @@ identical trajectory as an uninterrupted run."""
 import jax.numpy as jnp
 import numpy as np
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB, FilterConfig
-from msckf_stereo_c_tpu.io.checkpoint import load_state, save_state
-from msckf_stereo_c_tpu.models import run_sequence
-from msckf_stereo_c_tpu.models.state import init_filter_state
-from msckf_stereo_c_tpu.sim import (
+from msckf_stereo_c.config import EUROC_CALIB, FilterConfig
+from msckf_stereo_c.io.checkpoint import load_state, save_state
+from msckf_stereo_c.models import run_sequence
+from msckf_stereo_c.models.state import init_filter_state
+from msckf_stereo_c.sim import (
     make_circle_trajectory,
     make_landmarks,
     project_tracks,

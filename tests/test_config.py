@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from msckf_stereo_c_tpu.config import (
+from msckf_stereo_c.config import (
     EUROC_CALIB,
     FilterConfig,
     FrontendConfig,
@@ -58,7 +58,7 @@ def test_frontend_precision_knob_plumbs_through_step():
     scoped wrapper end-to-end (on CPU both produce identical results; the
     test guards the wrapper/loader plumbing, mirroring
     tests/test_filter.py::test_matmul_precision_knob for the filter)."""
-    from msckf_stereo_c_tpu.models.frontend import (
+    from msckf_stereo_c.models.frontend import (
         frontend_step,
         init_tracker_state,
         make_frontend_params,

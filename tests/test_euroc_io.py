@@ -6,11 +6,11 @@ import os
 import numpy as np
 import pytest
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB, FilterConfig, FrontendConfig
-from msckf_stereo_c_tpu.io import evaluate_ate
-from msckf_stereo_c_tpu.io.euroc import load_images, load_sequence, synchronize_stereo
-from msckf_stereo_c_tpu.sim import make_circle_trajectory, make_wall_landmarks, synthesize_imu
-from msckf_stereo_c_tpu.sim.render import render_stereo_sequence
+from msckf_stereo_c.config import EUROC_CALIB, FilterConfig, FrontendConfig
+from msckf_stereo_c.io import evaluate_ate
+from msckf_stereo_c.io.euroc import load_images, load_sequence, synchronize_stereo
+from msckf_stereo_c.sim import make_circle_trajectory, make_wall_landmarks, synthesize_imu
+from msckf_stereo_c.sim.render import render_stereo_sequence
 
 
 @pytest.fixture(scope="module")
@@ -66,7 +66,7 @@ def test_load_sequence(fake_euroc):
 
 def test_native_loader_matches_cv2(fake_euroc):
     root, _, _ = fake_euroc
-    from msckf_stereo_c_tpu.io import native
+    from msckf_stereo_c.io import native
 
     if not native.available():
         pytest.skip("native runtime not built")
@@ -83,7 +83,7 @@ def test_native_loader_matches_cv2(fake_euroc):
 def test_end_to_end_driver_ate(fake_euroc):
     """The full dataset->driver->ATE path (the reference's golden-trajectory
     test, README.md:53-88) on the synthetic EuRoC-format dataset."""
-    from msckf_stereo_c_tpu.models.vio import run_vio_sequence
+    from msckf_stereo_c.models.vio import run_vio_sequence
 
     root, traj, frame_idx = fake_euroc
     seq = load_sequence(root)
@@ -111,8 +111,8 @@ def test_image_source_chunked_equivalence_and_overlap(fake_euroc):
     run_euroc_muitl_threads.cpp:30-90, without its race)."""
     import time
 
-    from msckf_stereo_c_tpu.io import native
-    from msckf_stereo_c_tpu.io.euroc import ImageSource
+    from msckf_stereo_c.io import native
+    from msckf_stereo_c.io.euroc import ImageSource
 
     root, _, _ = fake_euroc
     seq = load_sequence(root)
@@ -144,9 +144,10 @@ def test_image_source_chunked_equivalence_and_overlap(fake_euroc):
 
 def test_image_source_cv2_fallback(fake_euroc, monkeypatch):
     """Without the native runtime the source must fall back to synchronous
-    cv2 decode with identical pixels and chunk semantics."""
-    from msckf_stereo_c_tpu.io import native
-    from msckf_stereo_c_tpu.io.euroc import ImageSource
+    decode by the standard-library PNG codec, with pixels identical to the
+    cv2-written files and the same chunk semantics."""
+    from msckf_stereo_c.io import native
+    from msckf_stereo_c.io.euroc import ImageSource
 
     root, _, _ = fake_euroc
     seq = load_sequence(root)
@@ -164,7 +165,7 @@ def test_evaluate_ate_nonfinite_estimate_reports_inf():
     """A diverged estimate (NaN/inf positions) must report ATE=inf, not
     crash the Horn alignment (numpy SVD raises on non-finite input — hit
     by a filter blow-up during the round-5 klt_norm protocol)."""
-    from msckf_stereo_c_tpu.io import evaluate_ate
+    from msckf_stereo_c.io import evaluate_ate
 
     t = np.arange(10, dtype=np.float64) * 0.05
     gt = np.random.default_rng(0).normal(size=(10, 3))

@@ -5,11 +5,11 @@ reference-faithful 4-level temporal KLT."""
 import numpy as np
 import pytest
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB, FilterConfig, FrontendConfig
-from msckf_stereo_c_tpu.io import evaluate_ate
-from msckf_stereo_c_tpu.models.vio import run_vio_sequence
-from msckf_stereo_c_tpu.sim import make_circle_trajectory, make_wall_landmarks, synthesize_imu
-from msckf_stereo_c_tpu.sim.render import render_stereo_sequence
+from msckf_stereo_c.config import EUROC_CALIB, FilterConfig, FrontendConfig
+from msckf_stereo_c.io import evaluate_ate
+from msckf_stereo_c.models.vio import run_vio_sequence
+from msckf_stereo_c.sim import make_circle_trajectory, make_wall_landmarks, synthesize_imu
+from msckf_stereo_c.sim.render import render_stereo_sequence
 
 
 @pytest.mark.parametrize("temporal_levels,ate_bound", [(1, 0.13), (2, 0.13), (4, 0.25)])

@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB, FilterConfig
-from msckf_stereo_c_tpu.io import evaluate_ate
-from msckf_stereo_c_tpu.models import run_sequence
-from msckf_stereo_c_tpu.sim import (
+from msckf_stereo_c.config import EUROC_CALIB, FilterConfig
+from msckf_stereo_c.io import evaluate_ate
+from msckf_stereo_c.models import run_sequence
+from msckf_stereo_c.sim import (
     make_circle_trajectory,
     make_landmarks,
     project_tracks,
@@ -61,7 +61,7 @@ def test_qr_cholesky_equivalent(world):
 
 
 def test_schur_equivalent(world):
-    """The QR-free Schur path (TPU fast path) is algebraically the same
+    """The QR-free Schur path (the device fast path) is algebraically the same
     update and must reproduce the QR trajectory."""
     res_qr = _run(world, method="qr")
     res_sc = _run(world, method="schur")
@@ -71,7 +71,7 @@ def test_schur_equivalent(world):
 
 def test_f32_schur_accuracy(world):
     """The hardware path (float32 + schur) must stay within the ATE gate —
-    this is the dtype/method combination bench.py and the TPU drivers run."""
+    this is the dtype/method combination bench.py and the GPU drivers run."""
     import jax.numpy as jnp
 
     traj, imu, feats = world
@@ -128,8 +128,8 @@ def test_prune_update_camera_compaction_exact():
     """The camera-compacted gate+update used by the prune path (2 slots,
     rank-12 EKF update) must equal the full-width schur path exactly: same
     gating scores, same covariance, same corrected state."""
-    from msckf_stereo_c_tpu.models.state import init_filter_state
-    from msckf_stereo_c_tpu.models.update import (
+    from msckf_stereo_c.models.state import init_filter_state
+    from msckf_stereo_c.models.update import (
         cam_cov_blocks,
         measurement_update_schur,
         measurement_update_schur_compact,
@@ -195,7 +195,7 @@ def test_matmul_precision_knob(world, tmp_path):
     """FilterConfig.matmul_precision plumbs through filter_step (the context
     manager accepts the value) and the YAML loader round-trips it.  On CPU
     the setting is numerically inert, so the trajectory must be unchanged."""
-    from msckf_stereo_c_tpu.config import load_filter_config
+    from msckf_stereo_c.config import load_filter_config
     import dataclasses
 
     res_hi = _run(world, method="schur")

@@ -4,9 +4,9 @@ must expose the frame-N update tensors without perturbing the run."""
 import numpy as np
 import jax.numpy as jnp
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB, FilterConfig, FrontendConfig
-from msckf_stereo_c_tpu.models.vio import run_vio_sequence
-from msckf_stereo_c_tpu.sim import make_circle_trajectory, make_wall_landmarks, synthesize_imu
+from msckf_stereo_c.config import EUROC_CALIB, FilterConfig, FrontendConfig
+from msckf_stereo_c.models.vio import run_vio_sequence
+from msckf_stereo_c.sim import make_circle_trajectory, make_wall_landmarks, synthesize_imu
 
 FCFG = FrontendConfig(max_features=48)
 MCFG = FilterConfig(max_cam_state_size=6, max_tracks=64, max_imu_per_frame=12)
@@ -21,7 +21,7 @@ def test_internals_dump():
     # Deterministic track death: blank the scene from frame N on (texture
     # and blobs to zero -> flat images -> the KLT min-eig gate kills every
     # track), so frame N's filter step is guaranteed a full candidate set.
-    from msckf_stereo_c_tpu.sim.render_jax import JaxRenderer, StressEvents
+    from msckf_stereo_c.sim.render_jax import JaxRenderer, StressEvents
 
     N = 20
     ev = StressEvents.nominal(len(idx))

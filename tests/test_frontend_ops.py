@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from msckf_stereo_c_tpu.ops.fast import detect_grid_corners, fast_score_map, occupancy_from_points
-from msckf_stereo_c_tpu.ops.klt import optical_flow_pyr_lk
-from msckf_stereo_c_tpu.ops.pyramid import build_pyramid, pyr_down
+from msckf_stereo_c.ops.fast import detect_grid_corners, fast_score_map, occupancy_from_points
+from msckf_stereo_c.ops.klt import optical_flow_pyr_lk
+from msckf_stereo_c.ops.pyramid import build_pyramid, pyr_down
 
 RNG = np.random.default_rng(3)
 

@@ -1,10 +1,10 @@
-"""Host-exact IMU dt packing (ImuBatch.dt): the f32 TPU path must not lose
+"""Host-exact IMU dt packing (ImuBatch.dt): the f32 device path must not lose
 time resolution to absolute-timestamp subtraction at long horizons (f32 eps
 at t=130 s is ~1e-5 s = 0.2% of the 5 ms IMU interval)."""
 import numpy as np
 import jax.numpy as jnp
 
-from msckf_stereo_c_tpu.models.runner import pack_imu_batches
+from msckf_stereo_c.models.runner import pack_imu_batches
 
 
 def _world(T=40, rate=200.0, fps=20.0, t0=0.0, seed=0):

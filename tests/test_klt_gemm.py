@@ -4,8 +4,8 @@ import cv2
 import jax.numpy as jnp
 import numpy as np
 
-from msckf_stereo_c_tpu.ops.klt import optical_flow_pyr_lk
-from msckf_stereo_c_tpu.ops.klt_gemm import optical_flow_pyr_lk_gemm
+from msckf_stereo_c.ops.klt import optical_flow_pyr_lk
+from msckf_stereo_c.ops.klt_gemm import optical_flow_pyr_lk_gemm
 
 
 def _test_image(H=240, W=320, n_blobs=70, seed=5):

@@ -14,8 +14,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import msckf_stereo_c_tpu.ops.klt_corr as kc
-from msckf_stereo_c_tpu.ops.klt_corr import (
+from msckf_stereo_c.ops.klt_corr import (
     optical_flow_lk_corr_l0,
     stereo_anchor_lr_fused,
 )
@@ -63,11 +62,11 @@ def _tracking_setup(gain, offset, seed=3, n=40, shift=(1.3, -0.8)):
     return jnp.asarray(img0), jnp.asarray(img1), jnp.asarray(pts0), true1, jnp.asarray(guess)
 
 
-def _track(img0, img1, pts0, guess, norm):
+def _track(img0, img1, pts0, guess, norm, loop=None):
     res, _ = jax.jit(
         lambda a, b, p, g: optical_flow_lk_corr_l0(
             a, b, p, g, jnp.ones(p.shape[0], bool), win=15, iters=30, eps=0.01,
-            norm=norm,
+            norm=norm, loop=loop,
         ),
         static_argnames=(),
     )(img0, img1, pts0, guess)
@@ -153,14 +152,13 @@ def test_gain_mode_gain_invariant():
 
 
 @pytest.mark.parametrize("norm", ["zeromean", "offset", "gain"])
-def test_pallas_kernel_matches_xla_loop(norm, monkeypatch):
-    """The Pallas iteration kernels (interpret mode) must match the XLA
-    while_loop for the normalized modes too."""
+def test_pallas_kernel_matches_xla_loop(norm):
+    """The Triton-route iteration kernel (interpret mode; the third
+    surface for offset/gain) must match the XLA while_loop for the
+    normalized modes too."""
     img0, img1, pts0, true1, guess = _tracking_setup(gain=0.8, offset=10.0)
-    monkeypatch.setattr(kc, "_LOOP_MODE", "xla")
-    pts_x, val_x = _track(img0, img1, pts0, guess, norm)
-    monkeypatch.setattr(kc, "_LOOP_MODE", "interpret")
-    pts_p, val_p = _track(img0, img1, pts0, guess, norm)
+    pts_x, val_x = _track(img0, img1, pts0, guess, norm, loop="xla")
+    pts_p, val_p = _track(img0, img1, pts0, guess, norm, loop="interpret")
     np.testing.assert_array_equal(val_x, val_p)
     np.testing.assert_allclose(pts_x[val_x], pts_p[val_x], atol=2e-4)
 
@@ -213,8 +211,8 @@ def test_anchor_gain_mode_forward_bit_identical_to_none():
     stereo legs must be BIT-identical to the all-'none' call — only the
     anchor stage changes (it gets the affine-photometric solve against the
     gain-mismatched birth template), so the anchor outputs may differ."""
-    from msckf_stereo_c_tpu.config import FrontendConfig
-    from msckf_stereo_c_tpu.models.frontend import _norms
+    from msckf_stereo_c.config import FrontendConfig
+    from msckf_stereo_c.models.frontend import _norms
 
     assert _norms(FrontendConfig(klt_norm="anchor_gain")) == ("none", "gain")
 

@@ -6,7 +6,7 @@ import urllib.request
 
 import numpy as np
 
-from msckf_stereo_c_tpu.io.live_viewer import LiveViewer
+from msckf_stereo_c.io.live_viewer import LiveViewer
 
 
 def _get(port, path):

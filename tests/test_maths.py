@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 from scipy.spatial.transform import Rotation
 
-from msckf_stereo_c_tpu.utils import (
+from msckf_stereo_c.utils import (
     jpl_to_rot,
     quat_identity,
     quat_multiply,

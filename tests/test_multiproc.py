@@ -31,11 +31,11 @@ def _check(results):
 def test_multiproc_vio_bit_equality(tmp_path):
     import jax
 
-    from msckf_stereo_c_tpu.parallel.multiproc import (
+    from msckf_stereo_c.parallel.multiproc import (
         launch_workers,
         run_vio_reference,
     )
-    from msckf_stereo_c_tpu.parallel.multiseq import make_mesh
+    from msckf_stereo_c.parallel.multiseq import make_mesh
 
     assert len(jax.devices()) >= 4
     # Same mesh SHAPE as the 2-process x 2-device global mesh.
@@ -50,11 +50,11 @@ def test_multiproc_vio_bit_equality(tmp_path):
 
 @_child_only
 def test_multiproc_distributed_ba(tmp_path):
-    from msckf_stereo_c_tpu.parallel.multiproc import (
+    from msckf_stereo_c.parallel.multiproc import (
         launch_workers,
         run_ba_reference,
     )
-    from msckf_stereo_c_tpu.parallel.multiseq import make_mesh
+    from msckf_stereo_c.parallel.multiseq import make_mesh
 
     ref = run_ba_reference(make_mesh(4, axis="map"))
     assert ref["costs"][-1] < 1e-3 * ref["costs"][0]

@@ -2,10 +2,10 @@
 import jax.numpy as jnp
 import numpy as np
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB, FilterConfig
-from msckf_stereo_c_tpu.models import run_sequence
-from msckf_stereo_c_tpu.parallel.multiseq import run_multi_sequence
-from msckf_stereo_c_tpu.sim import (
+from msckf_stereo_c.config import EUROC_CALIB, FilterConfig
+from msckf_stereo_c.models import run_sequence
+from msckf_stereo_c.parallel.multiseq import run_multi_sequence
+from msckf_stereo_c.sim import (
     make_circle_trajectory,
     make_landmarks,
     project_tracks,

@@ -7,7 +7,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from msckf_stereo_c_tpu.parallel.multisession import (
+from msckf_stereo_c.parallel.multisession import (
     SessionData,
     apply_rigid,
     build_joint_graph,
@@ -16,7 +16,7 @@ from msckf_stereo_c_tpu.parallel.multisession import (
     optimize_joint,
     relative_prior,
 )
-from msckf_stereo_c_tpu.utils.quaternion import jpl_to_rot, rot_to_jpl
+from msckf_stereo_c.utils.quaternion import jpl_to_rot, rot_to_jpl
 
 
 def _rigid(yaw, t):

@@ -12,7 +12,7 @@ import time
 import numpy as np
 import pytest
 
-from msckf_stereo_c_tpu.io import native
+from msckf_stereo_c.io import native
 
 
 pytestmark = pytest.mark.skipif(
@@ -136,7 +136,7 @@ def test_cam_csv_and_unsynced_stereo(tmp_path):
     image_processor.cpp:703-706)."""
     import ctypes
 
-    from msckf_stereo_c_tpu.io.euroc import load_sequence, synchronize_stereo
+    from msckf_stereo_c.io.euroc import load_sequence, synchronize_stereo
 
     root = tmp_path / "mav0"
     t0 = 1403636579758555520

@@ -13,11 +13,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB, FilterConfig
-from msckf_stereo_c_tpu.io import evaluate_ate
-from msckf_stereo_c_tpu.models import run_sequence
-from msckf_stereo_c_tpu.models.msckf import _snr_weights
-from msckf_stereo_c_tpu.sim import (
+from msckf_stereo_c.config import EUROC_CALIB, FilterConfig
+from msckf_stereo_c.io import evaluate_ate
+from msckf_stereo_c.models import run_sequence
+from msckf_stereo_c.models.msckf import _snr_weights
+from msckf_stereo_c.sim import (
     make_circle_trajectory,
     make_landmarks,
     project_tracks,

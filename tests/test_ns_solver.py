@@ -1,4 +1,4 @@
-"""Newton–Schulz linear solver (the TPU factorization-free path): unit tests
+"""Newton–Schulz linear solver (the factorization-free path): unit tests
 against exact inverses, and end-to-end equivalence of the ns-solver filter
 against the Cholesky-solver filter on a synthetic world."""
 import dataclasses
@@ -6,10 +6,10 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB, FilterConfig
-from msckf_stereo_c_tpu.models import run_sequence
-from msckf_stereo_c_tpu.ops.linalg import ns_posdef_inverse
-from msckf_stereo_c_tpu.sim import (
+from msckf_stereo_c.config import EUROC_CALIB, FilterConfig
+from msckf_stereo_c.models import run_sequence
+from msckf_stereo_c.ops.linalg import ns_posdef_inverse
+from msckf_stereo_c.sim import (
     make_circle_trajectory,
     make_landmarks,
     project_tracks,

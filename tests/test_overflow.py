@@ -15,23 +15,23 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB, FilterConfig, FrontendConfig
-from msckf_stereo_c_tpu.io import evaluate_ate
-from msckf_stereo_c_tpu.models.frontend import (
+from msckf_stereo_c.config import EUROC_CALIB, FilterConfig, FrontendConfig
+from msckf_stereo_c.io import evaluate_ate
+from msckf_stereo_c.models.frontend import (
     frontend_step,
     init_tracker_state,
     make_frontend_params,
     pyramids_for,
 )
-from msckf_stereo_c_tpu.models.runner import run_sequence
-from msckf_stereo_c_tpu.sim import (
+from msckf_stereo_c.models.runner import run_sequence
+from msckf_stereo_c.sim import (
     make_circle_trajectory,
     make_landmarks,
     make_wall_landmarks,
     project_tracks,
     synthesize_imu,
 )
-from msckf_stereo_c_tpu.sim.render import render_stereo_sequence
+from msckf_stereo_c.sim.render import render_stereo_sequence
 
 
 def test_mass_track_death_update_cap():

@@ -3,14 +3,14 @@ equivalence."""
 import jax.numpy as jnp
 import numpy as np
 
-from msckf_stereo_c_tpu.parallel.posegraph import (
+from msckf_stereo_c.parallel.posegraph import (
     PoseGraph,
     make_distributed_pose_graph,
     odometry_edges,
     optimize_pose_graph,
 )
-from msckf_stereo_c_tpu.utils.lie import so3_exp
-from msckf_stereo_c_tpu.utils.quaternion import jpl_to_rot, rot_to_jpl
+from msckf_stereo_c.utils.lie import so3_exp
+from msckf_stereo_c.utils.quaternion import jpl_to_rot, rot_to_jpl
 
 RNG = np.random.default_rng(23)
 
@@ -68,7 +68,7 @@ def test_pose_graph_recovers_truth():
 
 
 def test_distributed_matches_single():
-    from msckf_stereo_c_tpu.parallel.multiseq import make_mesh
+    from msckf_stereo_c.parallel.multiseq import make_mesh
 
     graph, _, _ = _graph(F=17)  # 16 odo edges + 1 loop = 17... ensure /8
     # Pad edges to a multiple of 8 with zero-weight edges.

@@ -5,9 +5,9 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 
-from msckf_stereo_c_tpu.config import FrontendConfig
-from msckf_stereo_c_tpu.models.frontend import pyramids_for
-from msckf_stereo_c_tpu.ops.pyramid import build_pyramid, pyr_down, smooth5
+from msckf_stereo_c.config import FrontendConfig
+from msckf_stereo_c.models.frontend import pyramids_for
+from msckf_stereo_c.ops.pyramid import build_pyramid, pyr_down, smooth5
 
 
 def _ref_smooth(img: np.ndarray) -> np.ndarray:

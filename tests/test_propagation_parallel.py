@@ -5,14 +5,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB, FilterConfig
-from msckf_stereo_c_tpu.models.propagation import (
+from msckf_stereo_c.config import EUROC_CALIB, FilterConfig
+from msckf_stereo_c.models.propagation import (
     ImuBatch,
     propagate,
     propagate_sequential,
 )
-from msckf_stereo_c_tpu.models.msckf import make_params
-from msckf_stereo_c_tpu.models.state import init_filter_state
+from msckf_stereo_c.models.msckf import make_params
+from msckf_stereo_c.models.state import init_filter_state
 
 
 def _random_state(cfg, rng, dtype):

@@ -3,9 +3,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB
-from msckf_stereo_c_tpu.ops.camera import distort_points
-from msckf_stereo_c_tpu.ops.ransac import two_point_ransac
+from msckf_stereo_c.config import EUROC_CALIB
+from msckf_stereo_c.ops.camera import distort_points
+from msckf_stereo_c.ops.ransac import two_point_ransac
 
 RNG = np.random.default_rng(31)
 CAM = EUROC_CALIB.cam0

@@ -20,9 +20,9 @@ _IN_CHILD, _child_only, test_recovery_module_in_subprocess = isolate_module(
     __file__, "MSCKF_RECOVERY_CHILD"
 )
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB, FilterConfig
-from msckf_stereo_c_tpu.io import evaluate_ate
-from msckf_stereo_c_tpu.models.msckf import (
+from msckf_stereo_c.config import EUROC_CALIB, FilterConfig
+from msckf_stereo_c.io import evaluate_ate
+from msckf_stereo_c.models.msckf import (
     FrameFeatures,
     _online_reset,
     filter_step,
@@ -30,10 +30,10 @@ from msckf_stereo_c_tpu.models.msckf import (
     make_params,
     reset_filter,
 )
-from msckf_stereo_c_tpu.models.propagation import ImuBatch
-from msckf_stereo_c_tpu.models.runner import run_sequence
-from msckf_stereo_c_tpu.models.state import initial_cov_diag
-from msckf_stereo_c_tpu.sim import (
+from msckf_stereo_c.models.propagation import ImuBatch
+from msckf_stereo_c.models.runner import run_sequence
+from msckf_stereo_c.models.state import initial_cov_diag
+from msckf_stereo_c.sim import (
     make_circle_trajectory,
     make_landmarks,
     project_tracks,

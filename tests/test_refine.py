@@ -2,11 +2,11 @@
 verify the refinement reduces reprojection cost without corrupting poses."""
 import numpy as np
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB, FilterConfig
-from msckf_stereo_c_tpu.io import evaluate_ate
-from msckf_stereo_c_tpu.models import run_sequence
-from msckf_stereo_c_tpu.parallel.refine import build_ba_problem, refine_trajectory
-from msckf_stereo_c_tpu.sim import (
+from msckf_stereo_c.config import EUROC_CALIB, FilterConfig
+from msckf_stereo_c.io import evaluate_ate
+from msckf_stereo_c.models import run_sequence
+from msckf_stereo_c.parallel.refine import build_ba_problem, refine_trajectory
+from msckf_stereo_c.sim import (
     make_circle_trajectory,
     make_landmarks,
     project_tracks,

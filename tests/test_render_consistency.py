@@ -12,9 +12,9 @@ scripts/track_bias_probe.py is attributable to the *tracker*, not the sim.
 import numpy as np
 import pytest
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB
-from msckf_stereo_c_tpu.sim.render_jax import JaxRenderer, StressEvents
-from msckf_stereo_c_tpu.sim.trajectory import make_circle_trajectory, make_wall_landmarks
+from msckf_stereo_c.config import EUROC_CALIB
+from msckf_stereo_c.sim.render_jax import JaxRenderer, StressEvents
+from msckf_stereo_c.sim.trajectory import make_circle_trajectory, make_wall_landmarks
 
 R_WALL = 8.0
 

@@ -2,9 +2,9 @@
 (sim/render.py), plus behavioral checks on the stress channels."""
 import numpy as np
 
-from msckf_stereo_c_tpu.sim import make_circle_trajectory, make_wall_landmarks
-from msckf_stereo_c_tpu.sim.render import render_stereo_sequence
-from msckf_stereo_c_tpu.sim.render_jax import JaxRenderer, StressEvents, make_stress_events
+from msckf_stereo_c.sim import make_circle_trajectory, make_wall_landmarks
+from msckf_stereo_c.sim.render import render_stereo_sequence
+from msckf_stereo_c.sim.render_jax import JaxRenderer, StressEvents, make_stress_events
 
 
 def test_jax_renderer_matches_numpy():

@@ -18,9 +18,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB, FrontendConfig
-from msckf_stereo_c_tpu.models import frontend as fe
-from msckf_stereo_c_tpu.ops.klt_corr import (
+from msckf_stereo_c.config import EUROC_CALIB, FrontendConfig
+from msckf_stereo_c.models import frontend as fe
+from msckf_stereo_c.ops.klt_corr import (
     optical_flow_lk_corr_l0,
     stereo_anchor_lr_fused,
 )

@@ -1,5 +1,5 @@
 """Short-horizon CPU run of the V1_01-realistic stress gate (the full
-130 s multi-seed run is scripts/stress_gate.py on the TPU; VERDICT round 1
+130 s multi-seed run is scripts/stress_gate.py on the GPU; VERDICT round 1
 next #2, round 2 next #1/#4).
 
 Uses the same code path (sim/stress.py: stress trajectory + stress events
@@ -19,8 +19,8 @@ import pytest
 
 from _isolation import isolate_module
 
-from msckf_stereo_c_tpu.config import FilterConfig
-from msckf_stereo_c_tpu.sim.stress import run_stress_gate
+from msckf_stereo_c.config import FilterConfig
+from msckf_stereo_c.sim.stress import run_stress_gate
 
 _IN_CHILD, _child_only, test_stress_gate_module_in_subprocess = isolate_module(
     __file__, "MSCKF_STRESS_CHILD"
@@ -66,8 +66,8 @@ def test_stress_gate_ate(gate_out):
 def test_stress_events_actually_fire():
     """The short run must not silently skip the stress channels: re-derive
     the schedule and check each channel is active for a real fraction."""
-    from msckf_stereo_c_tpu.sim.render_jax import make_stress_events
-    from msckf_stereo_c_tpu.sim.trajectory import make_stress_trajectory
+    from msckf_stereo_c.sim.render_jax import make_stress_events
+    from msckf_stereo_c.sim.trajectory import make_stress_trajectory
 
     traj = make_stress_trajectory(duration=36.0)
     idx = np.arange(0, traj.t.shape[0], 10)

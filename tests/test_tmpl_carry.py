@@ -7,16 +7,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB, FrontendConfig
-from msckf_stereo_c_tpu.models.frontend import (
+from msckf_stereo_c.config import EUROC_CALIB, FrontendConfig
+from msckf_stereo_c.models.frontend import (
     FrameOutput,
     frontend_step,
     init_tracker_state,
     make_frontend_params,
     pyramids_for,
 )
-from msckf_stereo_c_tpu.sim import make_circle_trajectory, make_wall_landmarks, synthesize_imu
-from msckf_stereo_c_tpu.sim.render import render_stereo_sequence
+from msckf_stereo_c.sim import make_circle_trajectory, make_wall_landmarks, synthesize_imu
+from msckf_stereo_c.sim.render import render_stereo_sequence
 
 
 def _run(cfg, img0, img1, times):

@@ -12,7 +12,7 @@ tests pin that property.
 import numpy as np
 import pytest
 
-from msckf_stereo_c_tpu.sim.trajectory import (
+from msckf_stereo_c.sim.trajectory import (
     GRAVITY,
     make_circle_trajectory,
     make_fastmotion_trajectory,

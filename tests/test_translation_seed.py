@@ -17,11 +17,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB, FilterConfig, FrontendConfig
-from msckf_stereo_c_tpu.io import evaluate_ate
-from msckf_stereo_c_tpu.models.vio import run_vio_sequence
-from msckf_stereo_c_tpu.sim.render_jax import JaxRenderer, StressEvents
-from msckf_stereo_c_tpu.sim.trajectory import (
+from msckf_stereo_c.config import EUROC_CALIB, FilterConfig, FrontendConfig
+from msckf_stereo_c.io import evaluate_ate
+from msckf_stereo_c.models.vio import run_vio_sequence
+from msckf_stereo_c.sim.render_jax import JaxRenderer, StressEvents
+from msckf_stereo_c.sim.trajectory import (
     GRAVITY,
     SimTrajectory,
     _compose_rotations,

@@ -2,8 +2,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from msckf_stereo_c_tpu.models.triangulation import triangulate_track, triangulate_tracks
-from msckf_stereo_c_tpu.utils.quaternion import rot_to_jpl
+from msckf_stereo_c.models.triangulation import triangulate_track, triangulate_tracks
+from msckf_stereo_c.utils.quaternion import rot_to_jpl
 
 RNG = np.random.default_rng(7)
 
@@ -28,7 +28,7 @@ def _camera_ring(M=6, radius=2.0):
 
 
 def _observe(p_w, cam_q, cam_p):
-    from msckf_stereo_c_tpu.utils.quaternion import jpl_to_rot
+    from msckf_stereo_c.utils.quaternion import jpl_to_rot
 
     R_w_c0 = jpl_to_rot(cam_q)
     p_c0 = jnp.einsum("mij,mj->mi", R_w_c0, p_w[None] - cam_p)
@@ -62,7 +62,7 @@ def test_triangulate_masked_observations():
 
 
 def _depths(p_w, cam_q, cam_p):
-    from msckf_stereo_c_tpu.utils.quaternion import jpl_to_rot
+    from msckf_stereo_c.utils.quaternion import jpl_to_rot
 
     R_w_c0 = jpl_to_rot(cam_q)
     p_c0 = jnp.einsum("mij,mj->mi", R_w_c0, p_w[None] - cam_p)

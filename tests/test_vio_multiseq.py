@@ -8,22 +8,22 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB, FilterConfig, FrontendConfig
-from msckf_stereo_c_tpu.models.frontend import make_frontend_params
-from msckf_stereo_c_tpu.models.msckf import make_params
-from msckf_stereo_c_tpu.models.propagation import ImuBatch
-from msckf_stereo_c_tpu.models.runner import pack_imu_batches
-from msckf_stereo_c_tpu.models.vio import init_vio_state, vio_step
-from msckf_stereo_c_tpu.parallel.multiseq import make_mesh
-from msckf_stereo_c_tpu.parallel.vio_multiseq import (
+from msckf_stereo_c.config import EUROC_CALIB, FilterConfig, FrontendConfig
+from msckf_stereo_c.models.frontend import make_frontend_params
+from msckf_stereo_c.models.msckf import make_params
+from msckf_stereo_c.models.propagation import ImuBatch
+from msckf_stereo_c.models.runner import pack_imu_batches
+from msckf_stereo_c.models.vio import init_vio_state, vio_step
+from msckf_stereo_c.parallel.multiseq import make_mesh
+from msckf_stereo_c.parallel.vio_multiseq import (
     batched_init_vio_state,
     make_sharded_vio_runner,
 )
-from msckf_stereo_c_tpu.sim import make_circle_trajectory, make_wall_landmarks, synthesize_imu
-from msckf_stereo_c_tpu.sim.render_jax import JaxRenderer, StressEvents
+from msckf_stereo_c.sim import make_circle_trajectory, make_wall_landmarks, synthesize_imu
+from msckf_stereo_c.sim.render_jax import JaxRenderer, StressEvents
 
 FCFG = FrontendConfig(max_features=64)
-# The TPU flagship configuration (bench.py): schur method + Newton-Schulz
+# The flagship configuration of the earlier bench: schur method + Newton-Schulz
 # solvers, f32 filter.  Window/pool sizes reduced CPU-affordably; the
 # driver-side dryrun (__graft_entry__.dryrun_multichip) runs the full
 # M=20/K=128 shapes.  M=6 with T=10 frames (T >= M+2, VERDICT round 2 next

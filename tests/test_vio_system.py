@@ -5,13 +5,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from msckf_stereo_c_tpu.config import EUROC_CALIB, FilterConfig, FrontendConfig
-from msckf_stereo_c_tpu.models.frontend import make_frontend_params
-from msckf_stereo_c_tpu.models.msckf import make_params
-from msckf_stereo_c_tpu.models.propagation import ImuBatch
-from msckf_stereo_c_tpu.models.vio import init_vio_state, vio_step
-from msckf_stereo_c_tpu.sim import make_circle_trajectory, make_wall_landmarks, synthesize_imu
-from msckf_stereo_c_tpu.sim.render import render_stereo_sequence
+from msckf_stereo_c.config import EUROC_CALIB, FilterConfig, FrontendConfig
+from msckf_stereo_c.models.frontend import make_frontend_params
+from msckf_stereo_c.models.msckf import make_params
+from msckf_stereo_c.models.propagation import ImuBatch
+from msckf_stereo_c.models.vio import init_vio_state, vio_step
+from msckf_stereo_c.sim import make_circle_trajectory, make_wall_landmarks, synthesize_imu
+from msckf_stereo_c.sim.render import render_stereo_sequence
 
 FCFG = FrontendConfig(max_features=48)
 MCFG = FilterConfig(max_cam_state_size=6, max_tracks=64, max_imu_per_frame=10)
